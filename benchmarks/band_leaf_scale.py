@@ -32,7 +32,7 @@ def main():
                     help="banded-only run at this row count (0 = 3x --rows)")
     ap.add_argument("--cpu", action="store_true",
                     help="force the CPU backend (default: the platform "
-                         "default, i.e. the TPU when available)")
+                         "default, i.e. the GPU when available)")
     ap.add_argument("--skip-dense", action="store_true")
     ap.add_argument("--solve", action="store_true",
                     help="run full IPM solves instead of factor+solve")

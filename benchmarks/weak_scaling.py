@@ -2,9 +2,10 @@
 constant while the mesh grows (the north-star metric: >=0.8 weak-scaling
 efficiency from 1 to N devices, BASELINE.md).
 
-On CPU (or with XLA_FLAGS=--xla_force_host_platform_device_count=8) this
-exercises the virtual mesh; on a real multi-chip slice the same script
-measures ICI scaling. Prints one JSON line per mesh size + a summary.
+With --cpu this exercises an 8-device virtual CPU mesh; on a host with
+several GPUs (4 H100s joined all to all by NVLink) the same script
+measures multi-GPU scaling. Prints one JSON line per mesh size + a
+summary.
 """
 import argparse
 import json

@@ -2,10 +2,10 @@
 
 The reference handles heterogeneous scenario blocks natively (each tree
 node carries its own sparse matrices, DistributedMatrix.h:44-48).  The
-TPU-batched layout of core/lp.py pads every block to the global maximum
-shape — O(N * max^2) waste when block sizes vary widely.  Bucketing fixes
-this the TPU way: blocks are grouped into a few SIZE BUCKETS, each bucket
-padded only to its own maximum and batched on the MXU separately; all
+batched layout of core/lp.py pads every block to the global maximum
+shape — O(N * max^2) waste when block sizes vary widely.  Bucketing keeps
+the batching: blocks are grouped into a few SIZE BUCKETS, each bucket
+padded only to its own maximum and batched separately; all
 buckets share one first stage and one set of linking rows, and their Schur
 contributions are summed before a single root factorization
 (linalg/bucket_backend.py).
@@ -60,7 +60,8 @@ jax.tree_util.register_pytree_node(
 
 def bucket_blocks(shapes: list, quantum: int = 64) -> list:
     """Group block shapes (n, mE, mI) into buckets: shapes are quantized
-    up to multiples of `quantum` (the MXU tile edge) and grouped by the
+    up to multiples of `quantum` (64: a tile-friendly edge chosen on the
+    earlier accelerator, unmeasured on the GPU) and grouped by the
     quantized triple — padding waste is bounded by the quantum while the
     number of distinct compiled batch shapes stays small.  Returns the
     bucket key per block."""

@@ -1,12 +1,12 @@
 """Host-side CSR sparse storage: static + dynamic row-capacity variants.
 
-The TPU-native counterpart of the reference's sparse linear algebra layer
+The counterpart of the reference's sparse linear algebra layer
 (SparseStorage.C:1-2198 static CSR; SparseStorageDynamic.C dynamic
 row-capacity CSR used by presolve; SparseMatrix.C wrappers).  Role split:
 
-  * device math stays in the batched formats (dense tiles for the MXU,
-    batched ELL for genuinely sparse blocks — core/sparse.py): TPU kernels
-    want static shapes, not per-row indirection;
+  * device math stays in the batched formats (dense padded blocks,
+    batched ELL for genuinely sparse blocks — core/sparse.py): compiled
+    device programs want static shapes, not per-row indirection;
   * everything OUTSIDE the jitted hot path — intake, readers, presolve,
     scalers' statistics, fixture generation — manipulates CSR on the host,
     exactly where the reference uses SparseStorage(Dynamic).

@@ -5,16 +5,15 @@ The reference's answer to large sparse per-block KKTs is a supernodal
 sparse LDL^T inside PARDISO (PardisoSchurSolver.C:84-252 symbolic setup;
 SparseStorage.C), and it REQUIRES the user to annotate block structure
 up front (gmspips GAMS annotations, DistributedInputTree callbacks).
-The TPU-native equivalent lifts the same idea — fill-reducing ordering +
+This module lifts the same idea — fill-reducing ordering +
 separator elimination — from the factorization level to the PROBLEM
 level: RCM-order the column-interaction graph, cut it into contiguous
 chunks (the "supernodes"), promote high-traffic crossing columns to the
 first stage (the "separator"), turn the residual crossing rows into
-linking rows, and hand the result to the existing batched dense MXU
+linking rows, and hand the result to the existing batched dense
 machinery (ArrowBackend / hierarchical / bucketed).  Sub-block
-factorizations then run as one fused batched Pallas LDL^T — dense panels
-at MXU speed-of-light instead of irregular scalar sparsity, which is the
-whole TPU playbook.
+factorizations then run as one batched dense Cholesky instead of
+irregular scalar sparsity.
 
 Bonus capability the reference does not have: `auto_structure` accepts
 ANY flat LP (e.g. straight from the MPS reader) with no annotations and
@@ -282,7 +281,7 @@ def structure_report(dmap: DissectMap, alp: ArrowheadLP) -> dict:
 # reference's supernodal leaf factorization: PARDISO eliminates a big
 # sparse block via nested-dissection fronts INSIDE the factorization,
 # PardisoSchurSolver.C:84-252; here the dissection happens once at
-# intake and the sub-blocks run on the batched dense MXU path).
+# intake and the sub-blocks run on the batched dense path).
 # ======================================================================
 
 def _greedy_split(K_pattern, n_local, sub_target):

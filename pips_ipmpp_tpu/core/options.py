@@ -90,11 +90,10 @@ class Options:
 
     # ---- linear algebra ----
     factor_dtype: str = "auto"             # "float32" | "float64" | "auto"
-    # global matmul precision on TPU f32: "highest" (6-pass bf16 emulation,
-    # the safe default) or "high" (3-pass, ~2x faster matmuls).  Measured:
-    # "high" is convergence-safe ONLY with factored_inverse=True (the
-    # Pallas LDL kernel pins its own dots to HIGHEST; the explicit-Ninv
-    # einsum at 3-pass loses too much accuracy and stalls the IPM).
+    # process-global precision of f32 matmuls (jax_default_matmul_precision):
+    # "highest" = full f32, the default; on the GPU "high" and "default"
+    # mean TF32 (10-bit mantissa), too coarse for f32 factors.  f64
+    # matmuls are unaffected.
     matmul_precision: str = "highest"
     primal_regularization: float = 1e-10   # delta_p (Friedlander-Orban style)
     dual_regularization: float = 1e-10     # delta_d
@@ -131,12 +130,10 @@ class Options:
     # work when the linking dimension nD gets large
     iterative_root_panel: int = 0
     # densify SparseArrowheadLPs whose dense B/D twin fits this budget
-    # (MB) and run them on the batched-dense MXU path (the SURVEY's
-    # "decide empirically per block size" sizing rule: on TPU a dense
-    # factorization beats irregular gathers by orders of magnitude at
-    # 10^3-row-class blocks).  Default 256 MB so a default-config user
-    # gets the fast path automatically; 0 = never densify (always the
-    # ELL leaf).
+    # (MB) and run them on the batched-dense path (the SURVEY's "decide
+    # empirically per block size" sizing rule).  The 256 MB default was
+    # chosen on the earlier accelerator and is unmeasured on the GPU;
+    # 0 = never densify (always the ELL leaf).
     sparse_densify_max_mb: float = 256.0
     sc_diag_dom_bound: float = 0.001       # diagDomBounds[0]
     it_root_tol: float = 1e-9

@@ -2,9 +2,9 @@
 
 The reference's leaf engine stores every block sparsely (CSR static +
 dynamic, SparseStorage.C:1-2198) and factorizes it with a sparse direct
-solver (PardisoSchurSolver.C:84-252).  On TPU the direct analogue —
-scalar-indexed supernodal elimination — fights the hardware; the
-tpu-native representation is a *static-shape batched ELL*:
+solver (PardisoSchurSolver.C:84-252).  Its direct analogue —
+scalar-indexed supernodal elimination — does not batch; the device
+representation here is a *static-shape batched ELL*:
 
     val [N, m, K]   per-row nonzero values, K = max row nnz (zero-padded)
     col [N, m, K]   column indices (padded entries point at column 0 with
@@ -12,10 +12,10 @@ tpu-native representation is a *static-shape batched ELL*:
 
 Matvecs become one `take_along_axis` gather plus a K-contraction — static
 shapes, no scatter (the transpose is stored explicitly, built once on the
-host), batched over blocks and over multiple right-hand sides so the MXU
-and the gather unit stay busy.  Leaf *solves* then go matrix-free
-(Jacobi-preconditioned CG on the SPD condensed system) instead of through
-a factorization — see linalg/sparse_backend.py.
+host), batched over blocks and over multiple right-hand sides.  Leaf
+*solves* then go matrix-free (Jacobi-preconditioned CG on the SPD
+condensed system) instead of through a factorization — see
+linalg/sparse_backend.py.
 """
 from __future__ import annotations
 
@@ -392,9 +392,9 @@ def sparse_from_dense(lp: ArrowheadLP, K: int | None = None
 def dense_from_sparse(slp: SparseArrowheadLP) -> "ArrowheadLP":
     """Densify a SparseArrowheadLP back into the batched-dense ArrowheadLP.
 
-    The TPU sizing rule (SURVEY.md hard part #1: "decide empirically per
-    block size"): at 10^3-row-class blocks a dense MXU factorization beats
-    irregular gathers by orders of magnitude, so the facade densifies
+    The sizing rule (SURVEY.md hard part #1: "decide empirically per
+    block size"): at 10^3-row-class blocks a batched dense factorization
+    replaces the CG leaf's gathers, so the facade densifies
     sparse problems whose dense twin fits the `sparse_densify_max_mb`
     budget and runs them on ArrowBackend; the ELL+CG leaf covers the
     sizes where densification cannot fit."""

@@ -8,7 +8,7 @@ self-describing npz-per-block layout:
     <stem>_block0.npz   : first-stage arrays (c, A, b, C, bounds, F0, G0)
     <stem>_block<i>.npz : block arrays (c, A, B, b, C, D, bounds, F, G)
 
-Matrices are stored dense (same as the in-memory TPU layout); a CSR triplet
+Matrices are stored dense (same as the in-memory device layout); a CSR triplet
 variant can be added per-array without changing the format version.
 """
 from __future__ import annotations

@@ -1,10 +1,9 @@
-"""Callback-based problem input: the TPU-native equivalent of the
+"""Callback-based problem input: the equivalent of the
 reference's `DistributedInputTree` (Core/Readers/Distributed/
 DistributedInputTree.h:11-39): the user supplies per-block callbacks that
 return sizes and data on demand; the tree is materialized into the batched
 ArrowheadLP.  CSR triplets are accepted and densified (the batched-dense
-layout IS the TPU storage format; sparse blocks live as dense tiles on the
-MXU)."""
+layout IS the device storage format)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -72,7 +71,7 @@ class InputTree:
               bucketed: bool = False):
         """Assemble the batched problem.  `max_block_vars` splits
         oversized blocks at intake (core/dissect.refine_blocks);
-        `bucketed` groups heterogeneous block sizes into MXU-quantized
+        `bucketed` groups heterogeneous block sizes into size-quantized
         buckets (core/bucketed.py) instead of padding to the global max.
         Returns ArrowheadLP, or BucketedArrowheadLP when `bucketed`.
 

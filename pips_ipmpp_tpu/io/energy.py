@@ -265,11 +265,10 @@ def to_scipy(blocks, first, linking_eq, linking_ineq):
     return c, A_eq, b_eq, A_ub, lb_ub, ub_ub, lo, hi
 
 
-def highs_oracle(blocks, first, linking_eq, linking_ineq):
-    """Solve the flat LP with scipy HiGHS (trusted f64 oracle).
-    Returns (objective, x)."""
+def linprog_arrays(blocks, first, linking_eq, linking_ineq):
+    """The flat LP as scipy.optimize.linprog takes it:
+    (c, A_ub, b_ub, A_eq, b_eq, bounds), ranged rows split one-sided."""
     import scipy.sparse as sp
-    from scipy.optimize import linprog
 
     c, A_eq, b_eq, A_ub, lb_ub, ub_ub, lo, hi = to_scipy(
         blocks, first, linking_eq, linking_ineq)
@@ -286,10 +285,19 @@ def highs_oracle(blocks, first, linking_eq, linking_ineq):
             ub_rhs.append(-lb_ub[fin_lo])
     A1 = sp.vstack(ub_mats).tocsr() if ub_mats else None
     b1 = np.concatenate(ub_rhs) if ub_mats else None
-    res = linprog(c, A_ub=A1, b_ub=b1,
-                  A_eq=A_eq if A_eq.shape[0] else None,
-                  b_eq=b_eq if A_eq.shape[0] else None,
-                  bounds=np.stack([lo, hi], axis=1), method="highs")
+    return (c, A1, b1, A_eq if A_eq.shape[0] else None,
+            b_eq if A_eq.shape[0] else None, np.stack([lo, hi], axis=1))
+
+
+def highs_oracle(blocks, first, linking_eq, linking_ineq):
+    """Solve the flat LP with scipy HiGHS (trusted f64 oracle).
+    Returns (objective, x)."""
+    from scipy.optimize import linprog
+
+    c, A_ub, b_ub, A_eq, b_eq, bounds = linprog_arrays(
+        blocks, first, linking_eq, linking_ineq)
+    res = linprog(c, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=b_eq,
+                  bounds=bounds, method="highs")
     if not res.success:
         raise RuntimeError(f"HiGHS oracle failed: {res.message}")
     return float(res.fun), res.x

@@ -3,7 +3,7 @@
 The reference has NO checkpointing (SURVEY.md §5: solver state is never
 serialized); this framework adds it — the full IPM state is 12 space
 vectors plus a few scalars, so checkpoints are cheap and a preempted
-long solve (the normal TPU failure mode) resumes exactly.
+long solve resumes exactly.
 
 Format: single .npz with flattened leaves + a structure descriptor.
 """

@@ -44,7 +44,7 @@ where (rG, rP, rLam, rPi) are the complementarity right-hand sides of the
 current solve (affine: v*gamma; corrector: v*gamma + dv_aff*dgamma_aff -
 sigma*mu; etc.).  Because the (1,1) block is diagonal for an LP, the system
 condenses to SPD normal equations (M E^{-1} M' + F) d = M E^{-1} rho_x -
-rho_m — one batched Cholesky per block on the MXU (the role of PARDISO's
+rho_m — one batched Cholesky over all blocks (the role of PARDISO's
 LDL', PardisoSchurSolver.C).
 
 Recovery (signs per the derivation above):

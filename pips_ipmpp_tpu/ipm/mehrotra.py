@@ -1,8 +1,8 @@
 """Mehrotra predictor-corrector with Gondzio multiple centrality correctors.
 
 Backend-generic, fully jittable: one call = one IPM iteration (factorize +
-predictor solve + corrector solve + Gondzio loop + step).  This is the
-TPU-native reimplementation of the reference's InteriorPointMethod
+predictor solve + corrector solve + Gondzio loop + step).  This is a
+jittable reimplementation of the reference's InteriorPointMethod
 (Core/InteriorPointMethod/InteriorPointMethod.cpp): the predictor/corrector
 logic at :68-178, the Gondzio loop at :236-358, the primal vs primal-dual
 step rules (InteriorPointMethodType.hpp), and the fraction-to-boundary and

@@ -2,9 +2,9 @@ r"""Regularization strategies (reference RegularizationStrategy.h:15-38,
 FriedlanderOrbanRegularization.cpp, IpoptRegularization.cpp).
 
 The reference corrects wrong inertia by re-factorizing with primal/dual
-shifts chosen by a pluggable strategy.  On TPU there is no inertia oracle
-(no Bunch-Kaufman pivoting); the failure signal is `factorization_ok`
-(non-finite factors / wrong pivot signs in the quasidefinite LDL), which
+shifts chosen by a pluggable strategy.  The batched Cholesky factors give
+no inertia oracle (no Bunch-Kaufman pivoting); the failure signal is
+`factorization_ok` (non-finite factors), which
 plays the role of the reference's inertia test — the escalation schedules
 themselves are kept verbatim.
 

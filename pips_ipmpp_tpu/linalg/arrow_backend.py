@@ -1,9 +1,10 @@
 r"""Arrowhead backend: batched block KKT condensation + Schur complement.
 
-The TPU-native core of the framework.  Per IPM iteration, for every block i
-(all N at once, batched on the MXU — this replaces the reference's per-rank
-loop over PARDISO Schur factorizations, DistributedRootLinearSystem::factor2,
-DistributedRootLinearSystem.C:206-243 and PardisoSchurSolver::computeSC):
+The core of the framework.  Per IPM iteration, for every block i (all N
+at once, as batched dense linear algebra — this replaces the reference's
+per-rank loop over PARDISO Schur factorizations,
+DistributedRootLinearSystem::factor2, DistributedRootLinearSystem.C:206-243
+and PardisoSchurSolver::computeSC):
 
   block augmented KKT (quasidefinite; x-block diagonal for LPs):
 
@@ -52,7 +53,7 @@ from pips_ipmpp_tpu.ipm.formulation import Bounds, ReducedRhs
 @dataclass
 class ArrowFactors:
     L: jax.Array        # [N, mE+mI, mE+mI] batched Cholesky of Neq_i
-    Ninv: jax.Array     # [N, a, a] explicit Neq^{-1} (MXU solve path) or ()
+    Ninv: jax.Array     # [N, a, a] explicit Neq^{-1} (matmul solve path) or ()
     Einv: jax.Array     # [N, n]
     Om: jax.Array       # [N, mI]
     Ux: jax.Array       # [N, n, nS]      K^{-1}R rows x
@@ -67,9 +68,6 @@ class ArrowFactors:
     Oml: jax.Array      # [mIl]
     delta_p: jax.Array
     delta_d: jax.Array
-    Sinv: jax.Array     # [nSfull, nSfull] explicit root inverse (LDL kernel
-                        # path; the role of the reference's factorized root,
-                        # sLinsysRootAug.C:347-354) or ()
     ok: jax.Array       # scalar factorization-health flag (local)
     Wd: jax.Array       # [nD, nD/P] column-sharded dual-Schur inverse
                         # (distributed-root mode, linalg/dist_root.py) or ()
@@ -92,6 +90,19 @@ def _bchol_solve(L, b):
                                         transpose_a=False)
     return jax.lax.linalg.triangular_solve(L, u, left_side=True, lower=True,
                                            transpose_a=True)
+
+
+def batched_cholesky_factor(Neq, explicit_inverse: bool):
+    """Batched Cholesky of SPD Neq [N, a, a], plus the explicit inverse
+    Neq^{-1} (two batched triangular solves of the identity) when asked.
+    Returns (L, Ninv or (), ok) with ok = every entry finite."""
+    L = jnp.linalg.cholesky(Neq)
+    if not explicit_inverse:
+        return L, jnp.zeros((), Neq.dtype), jnp.all(jnp.isfinite(L))
+    eye = jnp.broadcast_to(jnp.eye(Neq.shape[-1], dtype=Neq.dtype),
+                           Neq.shape)
+    Ninv = _bchol_solve(L, eye)
+    return L, Ninv, jnp.all(jnp.isfinite(L)) & jnp.all(jnp.isfinite(Ninv))
 
 
 def _spd_solve(chol, b):
@@ -208,7 +219,6 @@ class ArrowBackend:
     def __init__(self, lp: ArrowheadLP, factor_dtype=jnp.float64,
                  axis: Optional[str] = None,
                  explicit_inverse: Optional[bool] = None,
-                 ldl_kernel: Optional[bool] = None,
                  blockwise_sc: int = 0,
                  dist_root: bool = False,
                  n_shards: int = 1,
@@ -217,8 +227,6 @@ class ArrowBackend:
                  it_root_tol: float = 1e-9,
                  it_root_maxiter: int = 200,
                  band_root_plan=None,
-                 factored_inverse: bool = False,
-                 sweep_kernel: Optional[bool] = None,
                  root_escalation: bool = True,
                  root_escalation_base: float = 1e-4,
                  root_escalation_growth: float = 100.0,
@@ -226,39 +234,12 @@ class ArrowBackend:
         self.lp = lp
         self.axis = axis
         self.factor_dtype = factor_dtype
-        # single-RHS triangular solves serialize on the MXU; with f32
-        # factors (TPU production path) apply explicit inverses instead —
-        # one extra multi-RHS solve at factorize time buys matvec-only
-        # back-substitutions (refinement absorbs the inverse round-off)
+        # f32 factors apply explicit inverses: one multi-RHS solve at
+        # factorize time buys matvec-only back-substitutions, and
+        # refinement in the working dtype absorbs the inverse round-off
         if explicit_inverse is None:
             explicit_inverse = (jnp.dtype(factor_dtype) == jnp.float32)
         self.explicit_inverse = explicit_inverse
-        # fused Pallas LDL^T+inverse kernel for the leaf and root factors
-        # (pallas_ldl.py) — the f32 TPU production path; f64 keeps the XLA
-        # cholesky path (CPU oracle tests)
-        if ldl_kernel is None:
-            ldl_kernel = (jnp.dtype(factor_dtype) == jnp.float32
-                          and self.explicit_inverse)
-        self.ldl_kernel = ldl_kernel
-        # sweep kernel (pallas_sweep.py): blocked symmetric Gauss-Jordan
-        # producing the explicit inverse in ONE kernel.  EXPERIMENTAL and
-        # OFF by default: unpivoted Gauss-Jordan has no backward-stability
-        # guarantee, and IPM barrier diagonals are ill-conditioned by
-        # design (complementarity spread grows as mu -> 0) — measured
-        # inverse error is O(1) at cond 1e12 even in f64, which turns the
-        # solve INFEASIBLE/NaN.  The LDL kernel (Cholesky-stable on the
-        # quasidefinite system) is the production path.
-        if sweep_kernel is None:
-            sweep_kernel = False
-        self.sweep_kernel = sweep_kernel and ldl_kernel \
-            and not factored_inverse
-        # factored-inverse leaf: keep (X = L^{-1}, d) from the LDL kernel
-        # and apply Neq^{-1} t = X' D^{-1} (X t) as two batched matmuls
-        # instead of materializing Ninv = X' D^{-1} X — drops one full
-        # [a, a] x [a, a] batched GEMM from every factorize at the cost
-        # of one extra [a, a] x [a, c] per multi-RHS solve (a win when
-        # the border count nS < a/2)
-        self.factored_inverse = factored_inverse and ldl_kernel
         # in-factorize ROOT-ONLY shift escalation (see _assemble_root):
         # retries the tiny root factor with growing extra shifts instead of
         # reporting failure to the outer loop (which would redo the leaves)
@@ -303,14 +284,9 @@ class ArrowBackend:
                                  "dist_root/iterative_root")
             self._rb_perm = jnp.asarray(band_root_plan.perm)
             self._rb_iperm = jnp.asarray(band_root_plan.iperm)
-        if self.iterative_root and (dist_root or self.ldl_kernel):
-            # the LDL-kernel and distributed-root paths own the root; the
-            # iterative root replaces the dense dual-Schur factorization
-            # in the two-level condensation path only
-            self.ldl_kernel = False
-            if dist_root:
-                raise ValueError("iterative_root and dist_root are "
-                                 "mutually exclusive root modes")
+        if self.iterative_root and dist_root:
+            raise ValueError("iterative_root and dist_root are "
+                             "mutually exclusive root modes")
         self.bounds = Bounds(
             c=XVec(lp.c0, lp.cN),
             b=RVec(lp.b0, lp.bN, lp.bl),
@@ -387,52 +363,17 @@ class ArrowBackend:
         Returns (L, Ninv, leaf_ok).  L/Ninv are whatever pytrees
         `_apply_Ninv_multi` consumes; the dense base class stores the
         batched Cholesky factor and (optionally) the explicit inverse."""
-        lp = self.lp
         fd = self.factor_dtype
-        a = M.shape[1]
         Neq = (jnp.einsum("iak,ibk->iab", MEi.astype(fd), M.astype(fd))
                + jax.vmap(jnp.diag)(Fd.astype(fd)))
-        if self.sweep_kernel:
-            # one-kernel explicit inverse (blocked symmetric sweep)
-            from pips_ipmpp_tpu.linalg.pallas_sweep import sweep_inverse
-            Ninv, df = sweep_inverse(Neq)
-            L = jnp.zeros((), fd)
-            leaf_ok = jnp.all(jnp.isfinite(Ninv)) & jnp.all(df > 0.0)
-            return L, Ninv, leaf_ok
-        if self.ldl_kernel:
-            # fused batched LDL^T + unit-lower inverse (pallas_ldl kernel);
-            # one VMEM-resident pass replaces cholesky + 2 triangular solves
-            from pips_ipmpp_tpu.linalg.pallas_ldl import ldl_inverse_factors
-            Xf, df = ldl_inverse_factors(Neq)
-            if self.factored_inverse:
-                leaf_ok = jnp.all(jnp.isfinite(Xf)) & jnp.all(df > 0.0)
-                return (Xf, 1.0 / df), jnp.zeros((), fd), leaf_ok
-            Ninv = jnp.einsum("ica,ic,icb->iab", Xf, 1.0 / df, Xf,
-                              precision=jax.lax.Precision.HIGHEST)
-            L = jnp.zeros((), fd)
-            leaf_ok = jnp.all(jnp.isfinite(Ninv)) & jnp.all(df > 0.0)
-            return L, Ninv, leaf_ok
-        L = jnp.linalg.cholesky(Neq)                       # [N, a, a]
-        if self.explicit_inverse:
-            eye_a = jnp.broadcast_to(jnp.eye(a, dtype=fd), (lp.N, a, a))
-            Ninv = _bchol_solve(L, eye_a)
-            leaf_ok = (jnp.all(jnp.isfinite(L))
-                       & jnp.all(jnp.isfinite(Ninv)))
-        else:
-            Ninv = jnp.zeros((), fd)
-            leaf_ok = jnp.all(jnp.isfinite(L))
-        return L, Ninv, leaf_ok
+        return batched_cholesky_factor(Neq, self.explicit_inverse)
 
     def _apply_Ninv_multi(self, L, Ninv, t):
         """Neq^{-1} t for multi-RHS t [N, a, c] via the stored leaf factor.
 
         Dispatch is shape-driven (which factor is populated), so any
-        subclass combination of leaf mode and root mode works: factored
-        (X, 1/d) tuple in L, explicit Ninv [N, a, a], or Cholesky L."""
-        if self.factored_inverse:
-            Xf, dinv = L
-            u = jnp.einsum("iab,ibc->iac", Xf, t)
-            return jnp.einsum("iba,ibc->iac", Xf, dinv[:, :, None] * u)
+        subclass combination of leaf mode and root mode works: explicit
+        Ninv [N, a, a], or Cholesky L."""
         if getattr(Ninv, "ndim", 0) == 3:
             return jnp.einsum("iab,ibc->iac", Ninv, t)
         return _bchol_solve(L, t)
@@ -486,8 +427,8 @@ class ArrowBackend:
             "iam,iaS->imS", Mf, Um)
 
         # ---- Schur contribution  -R' U ----
-        # R'U rows: [A'U_my + C'U_mz ; F U_x ; G U_x]; factor dtype on the
-        # MXU — refinement absorbs the error in the working dtype
+        # R'U rows: [A'U_my + C'U_mz ; F U_x ; G U_x]; matmuls in the
+        # factor dtype — refinement absorbs the error in the working dtype
         contrib_x0 = (jnp.einsum("imk,imS->kS", lp.A.astype(fd), Um[:, :mE])
                       + jnp.einsum("imk,imS->kS", lp.C.astype(fd), Um[:, mE:]))
         contrib_yl = jnp.einsum("ilm,imS->lS", lp.F.astype(fd), Ux)
@@ -609,7 +550,7 @@ class ArrowBackend:
                                 Einv0=Einv0, Om0=Om0, Oml=Oml,
                                 delta_p=jnp.asarray(delta_p, Einv.dtype),
                                 delta_d=jnp.asarray(delta_d, Einv.dtype),
-                                Sinv=z, ok=leaf_ok & root_ok, Wd=z,
+                                ok=leaf_ok & root_ok, Wd=z,
                                 RbG=Rb, RbC=z)
 
         if self.dist_root:
@@ -634,7 +575,7 @@ class ArrowBackend:
                                 Sdinv=z, Einv0=Einv0, Om0=Om0, Oml=Oml,
                                 delta_p=jnp.asarray(delta_p, Einv.dtype),
                                 delta_d=jnp.asarray(delta_d, Einv.dtype),
-                                Sinv=z, ok=leaf_ok & root_ok, Wd=Wd)
+                                ok=leaf_ok & root_ok, Wd=Wd)
 
         if self.iterative_root:
             # ---- preconditioned iterative root (reference SCsparsifier +
@@ -655,98 +596,59 @@ class ArrowBackend:
                                 Einv0=Einv0, Om0=Om0, Oml=Oml,
                                 delta_p=jnp.asarray(delta_p, Einv.dtype),
                                 delta_d=jnp.asarray(delta_d, Einv.dtype),
-                                Sinv=z, ok=leaf_ok & root_ok, Wd=z,
+                                ok=leaf_ok & root_ok, Wd=z,
                                 Sd=Sdual, Pchol=Pchol)
 
-        if self.ldl_kernel:
-            # ---- single quasidefinite root factor+inverse (LDL kernel) ---
-            # S_full = [[S11, S12], [S12', S22]] has SPD primal block and
-            # negative-definite dual block -> unpivoted LDL is stable
-            # (Vanderbei); the explicit inverse turns every root solve into
-            # one matvec.
-            ns = n0 + nD
-            Sfull = jnp.zeros((ns, ns), fd)
-            Sfull = Sfull.at[:n0, :n0].set(S11.astype(fd))
-            Sfull = Sfull.at[:n0, n0:].set(S12.astype(fd))
-            Sfull = Sfull.at[n0:, :n0].set(S12.T.astype(fd))
-            Sfull = Sfull.at[n0:, n0:].set(S22.astype(fd))
-            sgn = jnp.concatenate([jnp.ones((n0,), fd),
-                                   -jnp.ones((nD,), fd)])
-
-            def _root_factor(extra):
-                S = Sfull + jnp.diag(sgn * extra)
-                if self.sweep_kernel:
-                    from pips_ipmpp_tpu.linalg.pallas_sweep import (
-                        sweep_inverse)
-                    Sinv1, ds = sweep_inverse(S[None])
-                    Sinv_ = Sinv1[0]
-                else:
-                    from pips_ipmpp_tpu.linalg.pallas_ldl import (
-                        ldl_inverse_factors)
-                    Xs, ds = ldl_inverse_factors(S[None])
-                    Sinv_ = jnp.einsum(
-                        "ica,ic,icb->iab", Xs, 1.0 / ds, Xs,
-                        precision=jax.lax.Precision.HIGHEST)[0]
-                ok_ = (jnp.all(jnp.isfinite(Sinv_))
-                       & jnp.all(ds[:, :n0] > 0.0)
-                       & jnp.all(ds[:, n0:] < 0.0))
-                return Sinv_, ok_
-
-            Sinv, root_ok = _root_factor(jnp.zeros((), fd))
-            extra = jnp.zeros((), fd)
-            # the sweep kernel's pivots are not reliable health signals
-            # (see pallas_sweep.py) — keep its failures on the outer ladder
-            if self.root_escalation and not self.sweep_kernel:
-                # Wrong-inertia failures in f32 are (empirically) always
-                # in THIS tiny root system, never the leaves: escalate
-                # only the root shift in place instead of failing the
-                # whole factorization — an outer-loop retry would redo
-                # every leaf factorization (~64x the root's FLOPs) just
-                # to rebuild this [ns, ns] factor.  Zero extra cost on
-                # healthy turns (the while_loop exits immediately).
-                def _cond(c):
-                    ex, _, ok_ = c
-                    return (~ok_) & (ex < self.root_escalation_max)
-
-                def _body(c):
-                    ex, _, _ = c
-                    ex2 = jnp.where(
-                        ex == 0.0, self.root_escalation_base,
-                        ex * self.root_escalation_growth).astype(fd)
-                    # clamp so the configured max is the LAST rung tried,
-                    # never overshot by a growth factor
-                    ex2 = jnp.minimum(
-                        ex2, jnp.asarray(self.root_escalation_max, fd))
-                    Sinv2, ok2 = _root_factor(ex2)
-                    return ex2, Sinv2, ok2
-
-                extra, Sinv, root_ok = jax.lax.while_loop(
-                    _cond, _body, (extra, Sinv, root_ok))
-                # the solved system now carries delta_p + extra on the
-                # first-stage primal diagonal and delta_d + extra on the
-                # root dual rows; Einv0/extra_root keep the refinement
-                # residual (_aug_residual) consistent with it
-                Einv0 = 1.0 / (Dx.first + delta_p + extra.astype(dt))
-            z = jnp.zeros((), fd)
-            return ArrowFactors(L=L, Ninv=Ninv, Einv=Einv, Om=Om, Ux=Ux,
-                                Um=Um, chol1=z, S11inv=z, T=z, chol2=z,
-                                Sdinv=z, Einv0=Einv0, Om0=Om0, Oml=Oml,
-                                delta_p=jnp.asarray(delta_p, Einv.dtype),
-                                delta_d=jnp.asarray(delta_d, Einv.dtype),
-                                Sinv=Sinv, ok=leaf_ok & root_ok,
-                                Wd=jnp.zeros((), fd),
-                                extra_root=extra.astype(Einv.dtype))
-
         # ---- root two-level condensation ----
-        chol1 = jnp.linalg.cholesky(S11.astype(fd))
-        T = _spd_solve(chol1, S12.astype(fd))
-        Sdual = -(S22.astype(fd) - S12.astype(fd).T @ T)
-        chol2 = jnp.linalg.cholesky(Sdual)
-        root_ok = (jnp.all(jnp.isfinite(chol1))
-                   & jnp.all(jnp.isfinite(chol2)))
+        S11f, S12f, S22f = S11.astype(fd), S12.astype(fd), S22.astype(fd)
+        eye1 = jnp.eye(n0, dtype=fd)
+        eyeD = jnp.eye(nD, dtype=fd)
+
+        def _root_factor(extra):
+            # the shifted quasidefinite root [[S11 + e I, S12],
+            # [S12', S22 - e I]]: SPD primal block, negative-definite dual
+            chol1 = jnp.linalg.cholesky(S11f + extra * eye1)
+            T = _spd_solve(chol1, S12f)
+            chol2 = jnp.linalg.cholesky(-(S22f - extra * eyeD - S12f.T @ T))
+            ok_ = jnp.all(jnp.isfinite(chol1)) & jnp.all(jnp.isfinite(chol2))
+            return (chol1, T, chol2), ok_
+
+        root, root_ok = _root_factor(jnp.zeros((), fd))
+        extra = jnp.zeros((), fd)
+        if self.root_escalation:
+            # A wrong-inertia failure in f32 sits in THIS small root
+            # system, not in the leaves: escalate only the root shift in
+            # place instead of failing the whole factorization — an
+            # outer-loop retry would redo every leaf factorization just to
+            # rebuild this [n0 + nD] factor.  Zero extra cost on healthy
+            # turns (the while_loop exits immediately).
+            def _cond(c):
+                ex, _, ok_ = c
+                return (~ok_) & (ex < self.root_escalation_max)
+
+            def _body(c):
+                ex, _, _ = c
+                ex2 = jnp.where(
+                    ex == 0.0, self.root_escalation_base,
+                    ex * self.root_escalation_growth).astype(fd)
+                # clamp so the configured max is the LAST rung tried,
+                # never overshot by a growth factor
+                ex2 = jnp.minimum(
+                    ex2, jnp.asarray(self.root_escalation_max, fd))
+                root2, ok2 = _root_factor(ex2)
+                return ex2, root2, ok2
+
+            extra, root, root_ok = jax.lax.while_loop(
+                _cond, _body, (extra, root, root_ok))
+            # the solved system now carries delta_p + extra on the
+            # first-stage primal diagonal and delta_d + extra on the root
+            # dual rows; Einv0/extra_root keep the refinement residual
+            # (_aug_residual) consistent with it
+            Einv0 = 1.0 / (Dx.first + delta_p + extra.astype(dt))
+        chol1, T, chol2 = root
         if self.explicit_inverse:
-            S11inv = _spd_solve(chol1, jnp.eye(n0, dtype=fd))
-            Sdinv = _spd_solve(chol2, jnp.eye(chol2.shape[0], dtype=fd))
+            S11inv = _spd_solve(chol1, eye1)
+            Sdinv = _spd_solve(chol2, eyeD)
             root_ok = (root_ok & jnp.all(jnp.isfinite(S11inv))
                        & jnp.all(jnp.isfinite(Sdinv)))
         else:
@@ -759,9 +661,9 @@ class ArrowBackend:
                             Einv0=Einv0, Om0=Om0, Oml=Oml,
                             delta_p=jnp.asarray(delta_p, Einv.dtype),
                             delta_d=jnp.asarray(delta_d, Einv.dtype),
-                            Sinv=jnp.zeros((), fd),
                             ok=leaf_ok & root_ok,
-                            Wd=jnp.zeros((), fd))
+                            Wd=jnp.zeros((), fd),
+                            extra_root=extra.astype(Einv.dtype))
 
     def _rb_band_solve(self, Ginv, Cb, rhs):
         """Band-part solve for rhs [nband, c] (permuted order)."""
@@ -868,8 +770,7 @@ class ArrowBackend:
         return gx, gm
 
     def _root_solve(self, fac: ArrowFactors, p, q):
-        """Solve S [a; d] = [p; q] via the cached two-level factorization
-        (or one matvec with the explicit root inverse on the kernel path)."""
+        """Solve S [a; d] = [p; q] via the cached two-level factorization."""
         fd = self.factor_dtype
         dt = p.dtype
         if self.band_root_plan is not None:
@@ -908,9 +809,6 @@ class ArrowBackend:
             a = (_spd_solve(fac.chol1, p.astype(fd)).astype(dt)
                  - fac.T @ d)
             return a, d
-        if getattr(fac, "Sinv", None) is not None and fac.Sinv.ndim == 2:
-            u = (fac.Sinv @ jnp.concatenate([p, q]).astype(fd)).astype(dt)
-            return u[:p.shape[0]], u[p.shape[0]:]
         q2 = (q - fac.T.T @ p).astype(fd)
         if self.explicit_inverse:
             d = -(fac.Sdinv @ q2).astype(dt)

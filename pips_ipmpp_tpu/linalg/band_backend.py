@@ -4,8 +4,8 @@ direct solver for blocks whose condensed normal equations are sparse.
 The reference factors each block's sparse augmented KKT with a multifrontal
 sparse LDL^T (PardisoSchurSolver.C:84-252, symbolic analysis in
 `firstSolveCall`, numeric factor + Schur per iteration).  A literal sparse
-supernodal factorization maps poorly to the TPU (dynamic gather/scatter,
-tiny irregular fronts).  The TPU-native equivalent implemented here keeps
+supernodal factorization batches poorly (dynamic gather/scatter, tiny
+irregular fronts).  The equivalent implemented here keeps
 the same separation:
 
   symbolic (host, once):  the sparsity pattern of Neq_i = M_i E^{-1} M_i'
@@ -20,7 +20,7 @@ the same separation:
 
           G_k G_k' = A_kk - C_{k-1} C_{k-1}',    C_k = A_{k+1,k} G_k^{-T}
 
-      entirely out of [N, b, b] MXU matmuls (all N blocks at once), storing
+      entirely out of [N, b, b] batched matmuls (all N blocks at once), storing
       the per-panel inverses G_k^{-1} so every subsequent solve is a scan
       of batched matmuls — no triangular sweeps over the full dimension.
 
@@ -221,9 +221,7 @@ class BandArrowBackend(ArrowBackend):
     def __init__(self, lp: ArrowheadLP, plan: BandPlan, **kw):
         kw.setdefault("explicit_inverse", False)
         super().__init__(lp, **kw)
-        # the band path owns the leaf; disable the dense leaf kernels
-        self.ldl_kernel = False
-        self.sweep_kernel = False
+        # the band path owns the leaf; no dense explicit inverses
         self.explicit_inverse = False
         self.plan = plan
         self._perm = jnp.asarray(plan.perm)

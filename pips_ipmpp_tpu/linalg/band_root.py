@@ -10,7 +10,7 @@ when rows r, r' touch a common block: ordering linking rows by their block
 window makes the dual Schur complement BANDED (plus the dense rank-n0
 coupling through x0, which stays an explicit small Schur complement).
 
-The TPU-native exploitation reverses the root elimination order:
+The exploitation here reverses the root elimination order:
 
   1. factor the permuted dual-dual block  SDD = -S22  with the batched
      block-tridiagonal Cholesky (band_backend.block_tridiag_factor) —
@@ -123,11 +123,11 @@ def plan_banded_root(lp: ArrowheadLP, panel: int | None = None,
     # B' B with B = supp; an RCM ordering of that graph minimizes the
     # bandwidth for ARBITRARY k-local link structure (graph-coupled
     # scenarios, interleaved chains, network topologies) where the
-    # window-center heuristic assumes a chain.  This is the TPU-native
+    # window-center heuristic assumes a chain.  This is the batched
     # analog of the reference's symbolic sparse-SC machinery
     # (DistributedProblem.hpp:66-77, createSchurCompSymbSparseUpper :73):
     # instead of a general sparse factorization, reduce the fill to a
-    # band and use the block-tridiagonal MXU path.  Keep whichever
+    # band and use the block-tridiagonal batched path.  Keep whichever
     # ordering yields the smaller half-bandwidth.
     band_rows = np.nonzero(touched & ~wide)[0]
     if band_rows.size > 2:

@@ -1,4 +1,4 @@
-"""Bucketed arrowhead backend: heterogeneous block sizes on the MXU.
+"""Bucketed arrowhead backend: heterogeneous block sizes, batched.
 
 Composes one `ArrowBackend` per size bucket (core/bucketed.py) under a
 single shared root: every bucket runs the batched leaf condensation and
@@ -8,7 +8,7 @@ MPI_Allreduce of the SC, DistributedRootLinearSystem.C:860-975) and the
 root is assembled and factorized exactly once.
 
 This replaces global max-shape padding (O(N * max^2) waste when blocks
-vary 10x) with per-bucket padding — the TPU analog of the reference's
+vary 10x) with per-bucket padding — the batched analog of the reference's
 per-node sparse blocks of arbitrary individual size
 (DistributedMatrix.h:44-48, DistributedProblem.hpp:80-96).
 

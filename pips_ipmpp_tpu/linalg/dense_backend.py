@@ -12,7 +12,7 @@ equations (the (1,1) block is diagonal for an LP):
 This plays the role the direct solvers play at the reference's root
 (DenseSymmetricIndefinitSolver, DeSymIndefSolver.C:28-126) but exploits LP
 diagonality to stay SPD.  Mixed precision: the Cholesky runs in
-`factor_dtype` (f32 on TPU), while iterative refinement of the *augmented*
+`factor_dtype` (f32 on request), while iterative refinement of the *augmented*
 residual runs in f64 (the role of solveCompressedIterRefin,
 LinearSystem.C:877).
 """

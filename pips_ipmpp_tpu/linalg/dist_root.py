@@ -7,13 +7,13 @@ solves are split round-robin over ranks (DsolveHierarchyBorder,
 sLinsysRootAug.C:1815-1867).  Replicating the root caps the linking
 dimension at one chip's memory and serializes the O(nD^3) factorization.
 
-TPU-native replacement (1-D column layout over the mesh axis):
+Replacement here (1-D column layout over the mesh axis):
 
   - the SPD dual Schur complement S [nD, nD] lives COLUMN-SHARDED: device
     d owns columns [d*nDp, (d+1)*nDp), nDp = nD / P
   - `dist_chol_inverse` runs a panel-blocked right-looking Cholesky: per
     128-column panel, the owner's current panel is broadcast with ONE
-    psum, every device updates its own trailing columns on the MXU
+    psum, every device updates its own trailing columns with matmuls
     (flops nD^3/(3P) per device); a second panel sweep forward/back-
     substitutes the device's own identity columns, yielding the explicit
     inverse W = S^{-1} column-sharded

@@ -1,6 +1,6 @@
 r"""Schur-complement sparsifier + preconditioner for the iterative root.
 
-TPU-native counterpart of the reference's SCsparsifier + distributed
+Counterpart of the reference's SCsparsifier + distributed
 preconditioned root solve (Core/LinearSolvers/Preconditioners/
 SCsparsifier.h:18-58, `DistributedRootLinearSystem::precondSC`,
 DistributedRootLinearSystem.h:130): when the linking dimension grows, the
@@ -9,11 +9,11 @@ reference switches the root to preconditioned BiCGStab with a *sparsified*
 SC (off-diagonal entries dominated by the diagonal are dropped, threshold
 ladder `diagDomBounds`) as the preconditioner.
 
-On TPU irregular sparsity buys nothing — the MXU-native analog of the
-sparsified factorization is a *panel block-Jacobi* preconditioner:
+Irregular sparsity does not batch — the dense analog of the sparsified
+factorization is a *panel block-Jacobi* preconditioner:
 
   - the dual SC is cut into fixed [pb, pb] diagonal panels (batched,
-    one Cholesky per panel on the MXU: O(nD * pb^2) << O(nD^3));
+    one batched Cholesky over the panels: O(nD * pb^2) << O(nD^3));
   - inside each panel the reference's exact drop rule is applied
     (|s_ij| kept iff >= t*|s_ii| or >= t*|s_jj|, SCsparsifier.C:213-234)
     so the preconditioner factors the same sparsified operator;

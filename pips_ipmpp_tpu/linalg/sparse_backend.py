@@ -1,8 +1,8 @@
 """Matrix-free sparse leaf backend: CG on the condensed block systems.
 
 The reference factorizes each (sparse) leaf KKT with PARDISO and extracts
-a Schur complement (PardisoSchurSolver.C:84-252).  The TPU-native
-replacement for *genuinely sparse* blocks — energy LPs with 10^4+ rows at
+a Schur complement (PardisoSchurSolver.C:84-252).  The replacement
+here for *genuinely sparse* blocks — energy LPs with 10^4+ rows at
 ~10 nnz/row, where the batched-dense condensation of ArrowBackend cannot
 even represent the blocks — keeps the same two-level condensation but
 solves the SPD condensed system
@@ -27,84 +27,11 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from pips_ipmpp_tpu.core.sparse import (SparseArrowheadLP, ell_mv,
                                         ell_mv_multi, ell_sq_diag)
 from pips_ipmpp_tpu.core.spaces import RVec, XVec
 from pips_ipmpp_tpu.linalg.arrow_backend import ArrowBackend
-from pips_ipmpp_tpu.linalg.pallas_spmv import (TiledEll, build_tiled,
-                                               from_tiles, tiled_spmv,
-                                               to_tiles)
-
-
-def sparse_leaf_tiles(lp: SparseArrowheadLP, dtype=None) -> dict:
-    """Host-side tiling of the merged leaf matrix M = [B; D] for the
-    Pallas lane-gather kernel (linalg/pallas_spmv.py).  Returns the
-    forward, transposed, and squared-weight (Jacobi diagonal) tilings.
-
-    Built ONCE per (scaled) LP — the sparsity and values of B/D are
-    static over the whole IPM solve; only the diagonal weights Einv/Fd
-    change per factorize, and those are applied OUTSIDE the kernel."""
-    Bc, Bv = np.asarray(lp.B.col), np.asarray(lp.B.val, np.float64)
-    Dc, Dv = np.asarray(lp.D.col), np.asarray(lp.D.val, np.float64)
-    N, mE, KB = Bc.shape
-    mI, KD = Dc.shape[1], Dc.shape[2]
-    K = max(KB, KD)
-    col = np.zeros((N, mE + mI, K), np.int32)
-    val = np.zeros((N, mE + mI, K), np.float64)
-    col[:, :mE, :KB], val[:, :mE, :KB] = Bc, Bv
-    col[:, mE:, :KD], val[:, mE:, :KD] = Dc, Dv
-    if dtype is None:
-        dtype = np.asarray(lp.cN).dtype
-    a, n = mE + mI, lp.n
-    fwd = build_tiled(col, val, a, n, dtype=dtype)
-    # the Jacobi-diagonal tiling shares fwd's slot layout exactly — only
-    # the weights are squared (keeps one idx constant instead of two)
-    sq = TiledEll(fwd.idx, fwd.w * fwd.w, fwd.m, fwd.n, fwd.maxp)
-    return dict(
-        fwd=fwd,
-        bwd=build_tiled(col, val, a, n, transpose=True, dtype=dtype),
-        sq=sq,
-    )
-
-
-def pcg_tiled(apply_A, B, dinv, max_iters: int, tol: float,
-              interpret: bool | None = None):
-    """Jacobi-preconditioned CG on tiled operands: B [N, mt, c, 128]
-    (independent systems per (block, rhs-column)).  Mirrors batched_pcg
-    below; padded rows/columns are exactly zero throughout."""
-    dt = B.dtype
-    tiny = jnp.asarray(jnp.finfo(dt).tiny, dt)
-    X = jnp.zeros_like(B)
-    R = B
-    Z = dinv * R
-    P = Z
-    rz = jnp.sum(R * Z, axis=(1, 3), keepdims=True)
-    bnorm2 = jnp.sum(B * B, axis=(1, 3), keepdims=True)
-    thresh = (tol ** 2) * jnp.maximum(bnorm2, tiny)
-
-    def cond(carry):
-        _X, R, _P, _rz, k = carry
-        rn2 = jnp.sum(R * R, axis=(1, 3), keepdims=True)
-        return (k < max_iters) & jnp.any(rn2 > thresh)
-
-    def body(carry):
-        X, R, P, rz, k = carry
-        Ap = apply_A(P)
-        den = jnp.sum(P * Ap, axis=(1, 3), keepdims=True)
-        alpha = jnp.where(den > tiny, rz / jnp.maximum(den, tiny), 0.0)
-        X = X + alpha * P
-        R = R - alpha * Ap
-        Z = dinv * R
-        rz2 = jnp.sum(R * Z, axis=(1, 3), keepdims=True)
-        beta = jnp.where(rz > tiny, rz2 / jnp.maximum(rz, tiny), 0.0)
-        P = Z + beta * P
-        return X, R, P, rz2, k + 1
-
-    X, _R, _P, _rz, k = jax.lax.while_loop(
-        cond, body, (X, R, P, rz, jnp.zeros((), jnp.int32)))
-    return X, k
 
 
 def batched_pcg(apply_A, B, dinv, max_iters: int, tol: float):
@@ -155,26 +82,18 @@ class SparseArrowBackend(ArrowBackend):
 
     def __init__(self, lp: SparseArrowheadLP, factor_dtype=jnp.float64,
                  axis: Optional[str] = None,
-                 cg_iters: int = 500, cg_tol: float = 0.0,
-                 tiles: Optional[dict] = None, interpret: bool | None = None,
-                 **kwargs):
+                 cg_iters: int = 500, cg_tol: float = 0.0, **kwargs):
         if kwargs.pop("blockwise_sc", 0):
             raise ValueError("blockwise_sc: the sparse leaf already "
                              "streams; caches are O(n * nS) only")
         # leaf-factor switches are meaningless here; the root keeps the
-        # fused-LDL/explicit-inverse defaults of the dense backend
+        # explicit-inverse default of the dense backend
         super().__init__(lp, factor_dtype=factor_dtype, axis=axis, **kwargs)
         self.cg_iters = cg_iters
         if cg_tol == 0.0:
             cg_tol = 1e-12 if jnp.dtype(factor_dtype) == jnp.float64 \
                 else 1e-7
         self.cg_tol = cg_tol
-        # Pallas lane-gather kernel path (pallas_spmv.py): `tiles` must be
-        # built host-side (sparse_leaf_tiles) OUTSIDE jit and passed in —
-        # backends are constructed inside the jitted step (solver.py), the
-        # same pattern as the banded plans.  None = XLA ELL gathers.
-        self.tiles = tiles
-        self.interpret = interpret
 
     # ---- sparse products -------------------------------------------------
     def _Mmv(self, x):
@@ -197,28 +116,12 @@ class SparseArrowBackend(ArrowBackend):
                 + ell_mv_multi(self.lp.Dt, A_[:, mE:]))
 
     # ---- matvecs (same structure as the dense backend; B/D terms go
-    #      through the ELL gathers, or the tiled kernel when built).
-    #      Tiled Ax/Cx both compute the merged M@x — XLA CSE dedups the
-    #      shared product within one traced step. -------------------------
-    def _Mx_tiled(self, xb):
-        """[B; D] @ xb via the lane-gather kernel; xb [N, n] -> [N, a]."""
-        xt = to_tiles(xb[:, None, :], self.tiles["fwd"].n_pad)
-        return from_tiles(self._spmv("fwd", xt),
-                          self.lp.mE + self.lp.mI, 1)[:, 0]
-
-    def _Mt_tiled(self, ab):
-        """[B; D]' @ ab via the kernel; ab [N, a] -> [N, n]."""
-        at = to_tiles(ab[:, None, :], self.tiles["fwd"].m_pad)
-        return from_tiles(self._spmv("bwd", at), self.lp.n, 1)[:, 0]
-
+    #      through the ELL gathers) ----------------------------------------
     def Ax(self, x: XVec) -> RVec:
         lp = self.lp
         first = lp.A0 @ x.first
-        if self.tiles is not None:
-            Bx = self._Mx_tiled(x.blocks)[:, :lp.mE]
-        else:
-            Bx = ell_mv(lp.B, x.blocks)
-        blocks = jnp.einsum("imk,k->im", lp.A, x.first) + Bx
+        blocks = (jnp.einsum("imk,k->im", lp.A, x.first)
+                  + ell_mv(lp.B, x.blocks))
         link = lp.F0 @ x.first + self._psum(
             jnp.einsum("iln,in->l", lp.F, x.blocks))
         return RVec(first, blocks, link)
@@ -227,22 +130,15 @@ class SparseArrowBackend(ArrowBackend):
         lp = self.lp
         first = (lp.A0.T @ y.first + lp.F0.T @ y.link
                  + self._psum(jnp.einsum("imk,im->k", lp.A, y.blocks)))
-        if self.tiles is not None:
-            Bty = self._Mt_tiled(jnp.concatenate(
-                [y.blocks, jnp.zeros_like(self.lp.iclowN)], axis=1))
-        else:
-            Bty = ell_mv(lp.Bt, y.blocks)
-        blocks = Bty + jnp.einsum("iln,l->in", lp.F, y.link)
+        blocks = (ell_mv(lp.Bt, y.blocks)
+                  + jnp.einsum("iln,l->in", lp.F, y.link))
         return XVec(first, blocks)
 
     def Cx(self, x: XVec) -> RVec:
         lp = self.lp
         first = lp.C0 @ x.first
-        if self.tiles is not None:
-            Dx = self._Mx_tiled(x.blocks)[:, lp.mE:]
-        else:
-            Dx = ell_mv(lp.D, x.blocks)
-        blocks = jnp.einsum("imk,k->im", lp.C, x.first) + Dx
+        blocks = (jnp.einsum("imk,k->im", lp.C, x.first)
+                  + ell_mv(lp.D, x.blocks))
         link = lp.G0 @ x.first + self._psum(
             jnp.einsum("iln,in->l", lp.G, x.blocks))
         return RVec(first, blocks, link)
@@ -251,12 +147,8 @@ class SparseArrowBackend(ArrowBackend):
         lp = self.lp
         first = (lp.C0.T @ z.first + lp.G0.T @ z.link
                  + self._psum(jnp.einsum("imk,im->k", lp.C, z.blocks)))
-        if self.tiles is not None:
-            Dtz = self._Mt_tiled(jnp.concatenate(
-                [jnp.zeros_like(self.lp.bN), z.blocks], axis=1))
-        else:
-            Dtz = ell_mv(lp.Dt, z.blocks)
-        blocks = Dtz + jnp.einsum("iln,l->in", lp.G, z.link)
+        blocks = (ell_mv(lp.Dt, z.blocks)
+                  + jnp.einsum("iln,l->in", lp.G, z.link))
         return XVec(first, blocks)
 
     # ---- condensed-system tools ------------------------------------------
@@ -274,58 +166,18 @@ class SparseArrowBackend(ArrowBackend):
         return batched_pcg(lambda V: self._neq_apply(Einv, Fd, V),
                            Bc, dinv, self.cg_iters, self.cg_tol)
 
-    # ---- Pallas tiled-kernel path (pallas_spmv.py) -----------------------
-    def _spmv(self, which, x_tiles):
-        return tiled_spmv(self.tiles[which], x_tiles,
-                          interpret=self.interpret)
-
-    def _leaf_cg_tiled(self, Einv_t, Fd_t, dinv_t, B_t):
-        """CG on tiled operands; Neq V = M E^{-1} M' V + F_d V with both
-        sweeps as lane-gather kernels."""
-        def apply_A(P):
-            t = self._spmv("bwd", P) * Einv_t
-            return self._spmv("fwd", t) + Fd_t * P
-        return pcg_tiled(apply_A, B_t, dinv_t, self.cg_iters, self.cg_tol,
-                         interpret=self.interpret)
-
-    def _solve_condensed_tiled(self, Einv, Fd, dinv, Bdense, c: int):
-        """Solve Neq X = B for dense-layout B [N, a, c]; returns [N, a, c].
-        Carries everything in [*, c_pad, 128] tiles."""
-        lp = self.lp
-        a_pad = self.tiles["fwd"].m_pad
-        n_pad = self.tiles["fwd"].n_pad
-        Einv_t = to_tiles(Einv[:, None, :], n_pad)       # [N, nt, 8, 128]
-        Einv_t = Einv_t[:, :, :1]                         # [N, nt, 1, 128]
-        Fd_t = to_tiles(Fd[:, None, :], a_pad)[:, :, :1]
-        dinv_t = to_tiles(dinv[:, None, :], a_pad)[:, :, :1]
-        B_t = to_tiles(jnp.swapaxes(Bdense, 1, 2), a_pad)
-        X_t, iters = self._leaf_cg_tiled(Einv_t, Fd_t, dinv_t, B_t)
-        return jnp.swapaxes(from_tiles(X_t, lp.mE + lp.mI, c), 1, 2), iters
-
-    def _jacobi_diag_tiled(self, Einv, Fd):
-        """diag(M E^{-1} M') + F_d via the squared-weight tiling."""
-        lp = self.lp
-        n_pad = self.tiles["sq"].n_pad
-        e_t = to_tiles(Einv[:, None, :], n_pad)
-        d_t = self._spmv("sq", e_t)
-        return from_tiles(d_t, lp.mE + lp.mI, 1)[:, 0] + Fd
-
     # ---- factorize: condensation + Schur contribution, no leaf factor ----
     def factorize(self, Dx: XVec, Ominv: RVec, delta_p, delta_d):
         lp = self.lp
         n0, mEl, mIl = lp.n0, lp.mEl, lp.mIl
         mE, mI, n = lp.mE, lp.mI, lp.n
-        nS = n0 + mEl + mIl
 
         Einv = 1.0 / (Dx.blocks + delta_p)                    # [N, n]
         Om = 1.0 / Ominv.blocks                               # [N, mI]
         Fd = self._Fd(Om, delta_d)                            # [N, a]
         # Jacobi preconditioner: diag(Neq) = sum_n M^2 Einv + Fd
-        if self.tiles is not None:
-            diag = self._jacobi_diag_tiled(Einv, Fd)
-        else:
-            diag = (jnp.concatenate([ell_sq_diag(lp.B, Einv),
-                                     ell_sq_diag(lp.D, Einv)], axis=1) + Fd)
+        diag = (jnp.concatenate([ell_sq_diag(lp.B, Einv),
+                                 ell_sq_diag(lp.D, Einv)], axis=1) + Fd)
         dinv = 1.0 / diag
 
         # border right-hand sides (columns [x0 | yl | zl]), as in the
@@ -341,23 +193,9 @@ class SparseArrowBackend(ArrowBackend):
             jnp.concatenate([lp.C, jnp.zeros((lp.N, mI, mEl + mIl), dt)],
                             axis=2)], axis=1)                 # [N, a, nS]
 
-        if self.tiles is not None:
-            a_pad = self.tiles["fwd"].m_pad
-            n_pad = self.tiles["fwd"].n_pad
-            Einv_t = to_tiles(Einv[:, None, :], n_pad)[:, :, :1]
-            Fd_t = to_tiles(Fd[:, None, :], a_pad)[:, :, :1]
-            dinv_t = to_tiles(dinv[:, None, :], a_pad)[:, :, :1]
-            EiRx_t = to_tiles(jnp.swapaxes(EiRx, 1, 2), n_pad)
-            rhsU_t = (self._spmv("fwd", EiRx_t)
-                      - to_tiles(jnp.swapaxes(Rm, 1, 2), a_pad))
-            Um_t, _iters = self._leaf_cg_tiled(Einv_t, Fd_t, dinv_t, rhsU_t)
-            Ux_t = EiRx_t - Einv_t * self._spmv("bwd", Um_t)
-            Um = jnp.swapaxes(from_tiles(Um_t, mE + mI, nS), 1, 2)
-            Ux = jnp.swapaxes(from_tiles(Ux_t, n, nS), 1, 2)
-        else:
-            rhsU = self._Mmv_multi(EiRx) - Rm
-            Um, _iters = self._leaf_cg(Einv, Fd, dinv, rhsU)  # [N, a, nS]
-            Ux = EiRx - Einv[:, :, None] * self._Mtmv_multi(Um)
+        rhsU = self._Mmv_multi(EiRx) - Rm
+        Um, _iters = self._leaf_cg(Einv, Fd, dinv, rhsU)      # [N, a, nS]
+        Ux = EiRx - Einv[:, :, None] * self._Mtmv_multi(Um)
 
         contrib_x0 = (jnp.einsum("imk,imS->kS", lp.A, Um[:, :mE])
                       + jnp.einsum("imk,imS->kS", lp.C, Um[:, mE:]))
@@ -377,18 +215,6 @@ class SparseArrowBackend(ArrowBackend):
     def _leaf_solve(self, fac, rho_x, rho_m):
         """K_b^{-1}(rho_x, rho_m) via one CG on the condensed system."""
         Fd = self._Fd(fac.Om, fac.delta_d)
-        if self.tiles is not None:
-            n_pad = self.tiles["fwd"].n_pad
-            ex_t = to_tiles((fac.Einv * rho_x)[:, None, :], n_pad)
-            t = (from_tiles(self._spmv("fwd", ex_t), self.lp.mE
-                            + self.lp.mI, 1)[:, 0] - rho_m)
-            gm, _ = self._solve_condensed_tiled(
-                fac.Einv, Fd, fac.Ninv, t[:, :, None], 1)
-            gm = gm[:, :, 0]
-            gm_t = to_tiles(gm[:, None, :], self.tiles["fwd"].m_pad)
-            Mtgm = from_tiles(self._spmv("bwd", gm_t), self.lp.n, 1)[:, 0]
-            gx = fac.Einv * (rho_x - Mtgm)
-            return gx, gm
         t = self._Mmv(fac.Einv * rho_x) - rho_m               # [N, a]
         gm, _ = self._leaf_cg(fac.Einv, Fd, fac.Ninv, t[:, :, None])
         gm = gm[:, :, 0]

@@ -20,12 +20,22 @@ _tried = False
 
 
 def _build() -> bool:
-    try:
-        subprocess.run(["make", "-C", _DIR, "-s"], check=True,
-                       capture_output=True, timeout=120)
-        return os.path.exists(_LIB_PATH)
-    except Exception:
-        return False
+    """Compile the library from src/ into a per-process file, then rename
+    it into place: concurrent first uses (test workers) never load a
+    half-written image.  Builds with OpenMP, else serially (a compiler
+    without the OpenMP runtime rejects -fopenmp)."""
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    for extra in ([], ["OPENMP="]):
+        try:
+            subprocess.run(["make", "-C", _DIR, "-s", "-B",
+                            f"TARGET={os.path.basename(tmp)}", *extra],
+                           check=True, capture_output=True, timeout=120)
+            os.replace(tmp, _LIB_PATH)
+            return True
+        except (OSError, subprocess.SubprocessError):
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return False
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

@@ -1,6 +1,6 @@
 """Distributed IPM solver over a device mesh.
 
-Two TPU-native execution modes, same math:
+Two execution modes, same math:
 
   - GSPMD ("gspmd"): shard the LP over the mesh (parallel.mesh) and jit the
     single-device code — XLA partitions the batched block work and inserts
@@ -8,10 +8,10 @@ Two TPU-native execution modes, same math:
     shardings, let XLA insert collectives).
   - shard_map ("shard_map"): the whole IPM step runs per-device on its local
     block shard with EXPLICIT `psum` collectives inside the backend
-    (ArrowBackend(axis=...)) — deterministic collective placement, and the
-    home for per-block Pallas kernels.  This mirrors the reference's
-    structure: local factorizations + chunked MPI_Allreduce of the Schur
-    complement (DistributedRootLinearSystem.C:860-975), with the root system
+    (ArrowBackend(axis=...)) — deterministic collective placement.  This
+    mirrors the reference's structure: local factorizations + chunked
+    MPI_Allreduce of the Schur complement
+    (DistributedRootLinearSystem.C:860-975), with the root system
     factorized redundantly on every device (the reference's replicated-root
     mode, ALLREDUCE_SCHUR_COMPLEMENT).
 
@@ -155,16 +155,12 @@ class DistributedIPMSolver:
             in_specs=(lp_specs, it_specs),
             out_specs=(P(), P(), P(), P()), check_vma=False))
 
-        # reuse the generic outer loop with the shard_map'ed kernels.
-        # IPMSolver.solve threads `aux` (large ctor operands) through its
-        # kernels; the shard_map'ed kernels here close over everything,
-        # so absorb-and-ignore it
+        # reuse the generic outer loop with the shard_map'ed kernels
         solver = IPMSolver.__new__(IPMSolver)
         solver.be_ctor = ctor
         solver.opts = opts
         solver.troubles_hook = None   # __init__ skipped; solve() reads it
-        solver.aux = None
-        solver._step = lambda lp_, aux_, *rest: step(lp_, *rest)
-        solver._eval = lambda lp_, aux_, *rest: evalf(lp_, *rest)
-        solver._init = lambda lp_, aux_: init(lp_)
+        solver._step = step
+        solver._eval = evalf
+        solver._init = init
         return solver.solve(lp, callback=callback)

@@ -3,11 +3,12 @@
 The reference's single distribution axis is blocks->MPI-ranks
 (DistributedTree::assignProcesses, Core/Readers/Distributed/
 DistributedTree.C:35-90) with first-stage/linking data replicated on every
-rank.  TPU-native equivalent: a 1-D `jax.sharding.Mesh` over an axis named
+rank.  Equivalent here: a 1-D `jax.sharding.Mesh` over an axis named
 "blocks"; per-block batched arrays are sharded on their leading axis,
 first-stage/linking arrays are replicated, and the Schur-complement
-reduction rides ICI collectives (inserted by GSPMD under jit, or written
-explicitly as psum under shard_map — both supported, see dist_solver).
+reduction rides device collectives (NVLink, all to all, between the GPUs
+of one host), inserted by GSPMD under jit or written explicitly as psum
+under shard_map — both supported, see dist_solver.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ PresolveData.C, 3963 LoC) and the event-sourcing side of StochPostsolver
 (StochPostsolver.h:28-71): every reduction emits a typed event; postsolve
 replays them in reverse.
 
-Key design difference (TPU-first): reductions DEACTIVATE rows/columns in
+Key design difference (static shapes): reductions DEACTIVATE rows/columns in
 place instead of compacting the arrays — shapes stay static (XLA-friendly)
 and indices stay valid for the whole presolve/postsolve round trip.
 Deactivated variables become inert boxed [-1,1] columns with zero objective;

@@ -4,9 +4,10 @@ The analogs of the reference's StochNodeResourcesMonitor (per-node
 fact/Lsolve/Dsolve/Ltsolve timers, Core/Problems/StochResourcesMonitor.hpp:
 35-60), the TIMING build-flag phase prints (PIPSIPMppInterface.cpp:29-124),
 and Statistics (rank-0 per-iteration log lines, Core/InteriorPointMethod/
-Statistics.cpp).  On TPU, intra-step phase granularity comes from the JAX
-profiler (`with jax.profiler.trace(...)`) — the monitor exposes a helper to
-wrap a solve in a trace; wall-clock phases are tracked host-side.
+Statistics.cpp).  On the device, intra-step phase granularity comes from
+the JAX profiler (`with jax.profiler.trace(...)`) — the monitor exposes a
+helper to wrap a solve in a trace; wall-clock phases are tracked
+host-side.
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ class ResourceMonitor:
 @contextlib.contextmanager
 def profiler_trace(logdir: str):
     """Wrap a region in a JAX profiler trace (TensorBoard-compatible) —
-    the TPU-native replacement for the reference's -DWITH_TIMING spans."""
+    the replacement for the reference's -DWITH_TIMING spans."""
     import jax
     with jax.profiler.trace(logdir):
         yield

@@ -148,7 +148,7 @@ def test_root_escalation_inert_when_healthy():
     """The in-factorize root escalation (reference inertia-correction role,
     LinearSystem.C:296-325, applied ONLY to the root system) must not
     perturb a healthy factorization: extra_root stays 0 and the f32
-    kernel-path solve still hits the known optimum."""
+    condensation-root solve still hits the known optimum."""
     from functools import partial
 
     lp, opt = two_scenario_linking_lp(jnp.float32)
@@ -164,3 +164,32 @@ def test_root_escalation_inert_when_healthy():
                   Options(refinement_steps=2)).solve(lp)
     assert r.status == TerminationStatus.SUCCESSFUL_TERMINATION
     assert abs(r.objective - opt) < 1e-3 * (1.0 + abs(opt))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_root_escalation_fires_on_indefinite_root(dtype):
+    """A root whose primal block S11 is slightly indefinite (-1e-6 I) fails
+    the plain condensation; the escalation retries with the first shift
+    rung (1e-4), succeeds, and records it for the refinement residual.
+    With the escalation off the same root reports failure."""
+    lp = random_arrowhead_lp(3, N=3, n=6, mE=3, mI=3, n0=3, m0E=1,
+                             m0I=1, mEl=1, mIl=1)
+    be = ArrowBackend(lp, factor_dtype=dtype)
+    it = interior_iterate(be, jax.random.PRNGKey(1))
+    Dx, Ominv = F.kkt_diagonals(be, it)
+    dp = dd = 1e-8
+    L, Ninv, Einv, Om, Ux, Um, contrib, leaf_ok = be.leaf_factorize(
+        Dx.blocks, Ominv.blocks, dp, dd)
+    n0 = lp.n0
+    # S11 = diag(Dx0 + dp) - contrib[:n0, :n0]  ->  -1e-6 I
+    S11 = jnp.diag(Dx.first + dp) - contrib[:n0, :n0]
+    contrib = contrib.at[:n0, :n0].add(S11 + 1e-6 * jnp.eye(n0))
+    args = (Dx, Ominv, dp, dd, L, Ninv, Einv, Om, Ux, Um, contrib, leaf_ok)
+
+    fac = be._assemble_root(*args)
+    assert bool(fac.ok)
+    assert float(fac.extra_root) == pytest.approx(1e-4)
+    np.testing.assert_allclose(fac.Einv0,
+                               1.0 / (Dx.first + dp + 1e-4), rtol=1e-6)
+    off = ArrowBackend(lp, factor_dtype=dtype, root_escalation=False)
+    assert not bool(off._assemble_root(*args).ok)

@@ -1,6 +1,6 @@
 """Bucketed heterogeneous block sizes (core/bucketed.py,
 linalg/bucket_backend.py): per-bucket batched padding instead of global
-max-shape padding, one shared root — the TPU analog of the reference's
+max-shape padding, one shared root — the batched analog of the reference's
 per-node arbitrary block sizes (DistributedMatrix.h:44-48)."""
 from functools import partial
 

@@ -1,7 +1,7 @@
 """Automatic structure detection (core/dissect.py): an unstructured
 sparse LP is reblocked onto the arrowhead path and must solve to the
 same objective as the flat dense path (the dissection is an exact
-permutation reformulation).  TPU-native replacement for the supernodal
+permutation reformulation).  Batched replacement for the supernodal
 sparse leaf factorization (reference PardisoSchurSolver.C:84-252) —
 separator elimination lifted to the problem level."""
 import numpy as np

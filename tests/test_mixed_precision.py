@@ -1,5 +1,5 @@
 """Mixed precision: f32 factorization + f64 residuals/adaptive refinement
-must converge to full f64 tolerances (the production TPU configuration —
+must converge to full f64 tolerances (the f32-factor configuration —
 SURVEY.md §7 'fp64 vs fp32' risk item)."""
 from functools import partial
 
@@ -55,7 +55,7 @@ def test_resolve_factor_dtype():
 
 
 def test_explicit_inverse_path():
-    """Explicit-inverse solve path (TPU production) must match the
+    """Explicit-inverse solve path (the f32-factor default) must match the
     triangular path to refinement accuracy."""
     from tests.helpers import (interior_iterate, max_newton_error,
                                newton_residuals)

@@ -137,3 +137,31 @@ def test_native_mps_parser_matches_python(tmp_path):
         assert info_n.row_names == info_p.row_names
         assert info_n.col_names == info_p.col_names
         assert info_n.free_rows == info_p.free_rows
+
+
+def test_build_falls_back_to_serial(lib, monkeypatch, tmp_path):
+    """A compiler without the OpenMP runtime fails the -fopenmp build; the
+    serial retry (OPENMP=) still produces the library.  Builds into a copy
+    of the sources so the shared library stays untouched."""
+    import os
+    import shutil
+    import subprocess
+
+    real_run = subprocess.run
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        if "OPENMP=" not in cmd:
+            raise subprocess.CalledProcessError(1, cmd)
+        return real_run(cmd, **kw)
+
+    d = tmp_path / "native"
+    shutil.copytree(os.path.dirname(native.__file__), d,
+                    ignore=shutil.ignore_patterns("*.so", "__pycache__"))
+    monkeypatch.setattr(native, "_DIR", str(d))
+    monkeypatch.setattr(native, "_LIB_PATH", str(d / "libpips_native.so"))
+    monkeypatch.setattr(native.subprocess, "run", run)
+    assert native._build()
+    assert (d / "libpips_native.so").exists()
+    assert len(calls) == 2

@@ -101,10 +101,8 @@ def test_energy_banded_root_2link():
 @pytest.mark.slow
 @pytest.mark.skipif(not __import__("os").environ.get("PIPS_XL_TESTS"),
                     reason="~30 min CPU f64; set PIPS_XL_TESTS=1 "
-                           "(run + recorded in ROUND_NOTES.md round 4: "
-                           "converged in 30 iters, obj 522861.96; the "
-                           "same instance solves in ~2.6 s on one TPU "
-                           "chip, bench cfg_energy_102kvar)")
+                           "(converged in 30 iters, obj 522861.96; on "
+                           "the GPU chip_smoke.py phase 3 solves it)")
 def test_energy_100k_vars_vs_highs():
     """The >= 1e5-variable acceptance case (round-3 verdict #2): 96
     periods x (550 gens + 350 lines + 4 storages + 150 regions) =
@@ -122,8 +120,7 @@ def test_energy_100k_vars_vs_highs():
 
 
 @pytest.mark.skipif(not __import__("os").environ.get("PIPS_XL_TESTS"),
-                    reason="~1 h CPU f64; set PIPS_XL_TESTS=1 (round-5 "
-                           "record: see ROUND_NOTES.md)")
+                    reason="~1 h CPU f64; set PIPS_XL_TESTS=1")
 def test_energy_1M_vars_vs_highs():
     """The ~10^6-variable regime (round-4 verdict #8, first point on the
     BASELINE north-star's pod-scale road): 300 periods x (1760 gens +

@@ -1,10 +1,8 @@
 """Sparse (ELL + matrix-free CG leaf) path: core/sparse.py,
-linalg/sparse_backend.py — the TPU-native stand-in for the reference's
+linalg/sparse_backend.py — the stand-in for the reference's
 sparse leaf engine (SparseStorage.C, PardisoSchurSolver.C:84-252)."""
-import dataclasses
 from functools import partial
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -202,7 +200,7 @@ def test_sparse_cg_leaf_converged_8blocks_8192rows_reference_scale():
 
 
 def test_facade_densify_budget_routing():
-    """sparse_densify_max_mb routes in-budget sparse LPs to the dense MXU
+    """sparse_densify_max_mb routes in-budget sparse LPs to the dense
     path (same optimum, gathers work); 0 opts out and keeps the ELL leaf.
     The DEFAULT options densify (256 MB budget, core/options.py) — a
     default-config user gets the fast path without knowing the knob."""
@@ -243,46 +241,3 @@ def test_facade_gathers_on_ell_sparse():
     assert iface.gatherDualSolutionVarBounds().shape == x.shape
     norms = iface.printComplementarityResiduals()
     assert all(v < 1e-5 for v in norms.values())
-
-
-import pytest as _pytest
-
-
-@_pytest.mark.skipif(
-    not __import__("os").environ.get("PIPS_TPU_TESTS"),
-    reason="real-TPU run (~8 min incl. compile); set PIPS_TPU_TESTS=1. "
-           "Recorded round 5: TTO 1.97 s at 8x2048 (vs 259.5 s round 4), "
-           "212.9 s at 8x8192 — see ROUND_NOTES.md / BENCH_r05")
-def test_tpu_tiled_leaf_8x2048():
-    """Non-densified 8x2048 sparse solve on the REAL chip through the
-    Pallas tiled lane-gather leaf (pallas_spmv.py): converges at
-    reduced accuracy, and the tiled path must be orders of magnitude
-    inside the round-4 XLA-gather TTO (259.5 s)."""
-    import time
-
-    import jax
-    import jax.numpy as jnp
-
-    assert jax.devices()[0].platform == "tpu"
-    from functools import partial
-
-    from pips_ipmpp_tpu.linalg.sparse_backend import (SparseArrowBackend,
-                                                      sparse_leaf_tiles)
-
-    slp = random_sparse_arrowhead_lp(0, N=8, n=2048, mE=1024, mI=1024,
-                                     nnz_per_row=10, n0=16, m0E=4, m0I=4,
-                                     mEl=4, mIl=4, dtype=jnp.float32)
-    sv = IPMSolver(partial(SparseArrowBackend, factor_dtype=jnp.float32,
-                           cg_iters=100),
-                   Options(max_gondzio_correctors=1, refinement_steps=2,
-                           reduced_accuracy=True, matmul_precision="high"),
-                   aux=dict(tiles=sparse_leaf_tiles(slp)))
-    r = sv.solve(slp)         # compile + converge
-    assert r.status == TerminationStatus.SUCCESSFUL_TERMINATION
-    import dataclasses
-    slp2 = dataclasses.replace(slp, c0=slp.c0 * (1 + 1e-6))
-    t0 = time.perf_counter()
-    r = sv.solve(slp2)
-    tto = time.perf_counter() - t0
-    assert r.status == TerminationStatus.SUCCESSFUL_TERMINATION
-    assert tto < 30.0, f"tiled sparse TTO regressed: {tto:.1f}s"
